@@ -1,15 +1,15 @@
-"""msm_tpu: a TPU-native Multi-Stream Method engine.
+"""msm_tpu: a Multi-Stream Method engine in JAX.
 
-A ground-up JAX/XLA/Pallas implementation of the capabilities of the
-reference MSM code (Schrodinger-Poisson evolution of gravitating scalar
-fields with quantum corrections via stream ensembles), designed TPU-first:
-one jitted KDK program over a (stream, space...) array on a device mesh,
-rather than a per-seed loop of device calls.
+A ground-up JAX/XLA implementation of the capabilities of the reference
+MSM code (Schrodinger-Poisson evolution of gravitating scalar fields with
+quantum corrections via stream ensembles), designed around one jitted KDK
+program over a (stream, space...) array on a device mesh, rather than a
+per-seed loop of device calls. Runs on NVIDIA GPUs (cuFFT through XLA).
 
 Public surface:
   config      - TOML schema (reference-compatible), parameter resolution
   grid        - k-grids, spectral grids, normalization
-  ops         - FFTs, Poisson solve, fused phase rotations (Pallas)
+  ops         - FFTs and phase rotations
   models      - initial conditions + quantum sampling schemes
   stepper     - the split-step integrator and in-jit evolve loops
   simulator   - single-run and batched-ensemble drivers

@@ -314,8 +314,7 @@ def determine_pmass_hbar(toml: TomlParameters) -> tuple[float, float]:
         )
     # Implausible resolved hbar_ (e.g. particle_mass given in the wrong
     # units with no explicit hbar_) makes the kick phase dt/hbar_ overflow
-    # f32 — observed to FAULT the TPU worker (a 5-minute chip-grant
-    # cooldown), not just produce NaNs. Warn early; the reference resolves
+    # f32 and the run produce NaNs. Warn early; the reference resolves
     # silently and produces garbage (`parameters.rs:222-259`).
     if not (1e-30 < hbar_ < 1e6):
         import logging

@@ -1,6 +1,6 @@
 """Flat-LCDM cosmology: scale-factor evolution and tau <-> t conversion.
 
-TPU-native counterpart of `simulator/src/expanding.rs` (a thin wrapper over
+Counterpart of `simulator/src/expanding.rs` (a thin wrapper over
 the external `cosmology` crate) plus the tau/t machinery in
 `simulator/src/simulation_object.rs:1344-1453`.
 

@@ -1,4 +1,4 @@
-"""Runtime error taxonomy (reference: simulator/src/utils/error.rs:4-35)."""
+"""Runtime error classes (reference: simulator/src/utils/error.rs:4-35)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Grid utilities: k-grids, spectral grids, normalization, sanity checks.
 
-TPU-native counterpart of `simulator/src/utils/fft.rs:100-161` (k grids) and
+Counterpart of `simulator/src/utils/fft.rs:100-161` (k grids) and
 `simulator/src/utils/grid.rs:11-105` (normalize / check_norm / NaN scans).
 
 Axis convention: config axis i (x=0, y=1, z=2) lives on array axis

@@ -2,25 +2,63 @@
 
 The C++ writer streams interleaved complex data straight into the two npy
 plane files without numpy `.real`/`.imag` temporaries and releases the GIL
-for the whole write (see native/msm_io.cpp). Falls back silently when the
-library has not been built (`make -C native`).
+for the whole write (see native/msm_io.cpp). The library is built from
+source on first use, and again whenever native/msm_io.cpp is newer than
+it (`make -C native`, into a temporary name renamed into place, so
+concurrent first uses cannot corrupt it). Without a compiler the numpy
+writers are used and a warning says so.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
+import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
-def _lib_path() -> str:
+def _native_dir() -> str:
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    return os.path.join(root, "native", "libmsm_io.so")
+    return os.path.join(root, "native")
+
+
+def _lib_path() -> str:
+    return os.path.join(_native_dir(), "libmsm_io.so")
+
+
+def build() -> str:
+    """Compile native/msm_io.cpp into native/libmsm_io.so; returns the path.
+
+    Builds to a per-process, per-thread temporary name and `os.replace`s
+    it into place: the rename is atomic, so parallel builders (test
+    workers) each install a complete library and a loader never sees a
+    partial file."""
+    path = _lib_path()
+    tmp = f".libmsm_io.{os.getpid()}.{threading.get_ident()}.tmp.so"
+    subprocess.run(
+        ["make", "-s", "-C", _native_dir(), f"OUT={tmp}"],
+        check=True,
+        capture_output=True,
+    )
+    os.replace(os.path.join(_native_dir(), tmp), path)
+    return path
+
+
+def is_stale(path: str) -> bool:
+    """Whether the library at `path` is missing or older than its source."""
+    src = os.path.join(_native_dir(), "msm_io.cpp")
+    return not os.path.exists(path) or (
+        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(path)
+    )
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -29,8 +67,17 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     path = _lib_path()
-    if not os.path.exists(path):
-        return None
+    if is_stale(path):
+        try:
+            build()
+        except (OSError, subprocess.CalledProcessError) as e:
+            detail = getattr(e, "stderr", b"") or b""
+            log.warning(
+                "native I/O library not built (%s%s); using the numpy writers",
+                e,
+                f": {detail.decode(errors='replace').strip()}" if detail else "",
+            )
+            return None
     try:
         lib = ctypes.CDLL(path)
         lib.msm_write_complex_pair.restype = ctypes.c_int
@@ -53,7 +100,8 @@ def _load() -> Optional[ctypes.CDLL]:
                 ctypes.c_int,
             ]
         _LIB = lib
-    except OSError:
+    except OSError as e:
+        log.warning("native I/O library failed to load (%s); using the numpy writers", e)
         _LIB = None
     return _LIB
 

@@ -1,6 +1,6 @@
 """Initial-condition families.
 
-TPU-native counterpart of `simulator/src/ics.rs:24-431,650-730`. ICs are
+Counterpart of `simulator/src/ics.rs:24-431,650-730`. ICs are
 built host-side in float64 numpy: they run once per simulation, want full
 precision, and several (npz ingestion, interpolation-based generators) are
 inherently host work. The resulting field is cast to the runtime dtype when

@@ -1,6 +1,6 @@
 """Quantum phase-space sampling schemes (Poisson / Wigner / Husimi).
 
-TPU-native counterpart of `sample_quantum_perturbation`
+Counterpart of `sample_quantum_perturbation`
 (`simulator/src/ics.rs:434-648`). The field is converted to an expected
 particle count per cell (psi * sqrt(dx^dims)), perturbed by sampling the
 chosen quantum distribution, and converted back to a density amplitude:
@@ -116,7 +116,7 @@ def sample_stream_batch(
 ) -> jax.Array:
     """Vectorized sampling: one shared psi -> (n_streams, *grid) perturbed.
 
-    This is the TPU answer to the reference's sequential per-seed loop
+    This replaces the reference's sequential per-seed loop
     (`simulator/src/main.rs:43-79`): every stream's perturbation is drawn in
     one batched, device-resident op.
     """

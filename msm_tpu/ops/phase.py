@@ -1,35 +1,15 @@
-"""Phase-rotation ops: psi * exp(i * coeff * field), jnp reference path.
+"""Phase-rotation ops: psi * exp(i * coeff * field).
 
 These are the memory-bound elementwise interludes between FFTs in the KDK
 step (`simulator/src/simulation_object.rs:504-516,535-545,562-574`). The
 expressions below are written on real planes so XLA fuses each into a
-single VPU loop; the stepper swaps in the hand-fused Pallas variants
-(`msm_tpu.ops.pallas_kernels`) when `use_pallas` is enabled and the grid is
-eligible — those also synthesize k^2 from indices instead of reading the
-spec_grid from HBM.
+single elementwise loop (and folds it into its producer or consumer where
+it can).
 """
 
 from __future__ import annotations
 
-import os
-
 import jax.numpy as jnp
-
-# Default OFF: at 256^3 on v5e the measured step time with the Pallas
-# kernels swapped in is identical to the XLA-fused jnp path (34.9 ms/step
-# both — the step is FFT-bound) while compile time rises ~6x under the
-# remote AOT compiler. The kernels remain available for experimentation.
-_USE_PALLAS = os.environ.get("MSM_USE_PALLAS", "0") not in ("0", "false")
-
-
-def use_pallas(enable: bool = True) -> None:
-    """Globally toggle the Pallas fast path for phase rotations."""
-    global _USE_PALLAS
-    _USE_PALLAS = enable
-
-
-def pallas_enabled() -> bool:
-    return _USE_PALLAS
 
 
 def _rotate_jnp(z, theta):

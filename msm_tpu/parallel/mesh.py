@@ -9,7 +9,7 @@ physical parallelism axes of the problem become mesh axes:
 - ``x``: spatial decomposition of the grid along its first (slowest) axis —
   the field-simulation analogue of sequence parallelism. FFTs across the
   sharded axis go through `msm_tpu.parallel.pfft` (all_to_all transposes
-  over ICI) or XLA SPMD resharding.
+  between devices) or XLA SPMD resharding.
 
 Multi-host: `jax.distributed.initialize` + the same mesh over all devices;
 host-side work (dump writing, offline synthesis) is split by process index

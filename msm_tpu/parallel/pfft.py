@@ -6,7 +6,7 @@ module is the scalability counterpart: the grid's first spatial axis is
 sharded over the ``x`` mesh axis, and a d-dim FFT becomes
 
     local FFT over the (d-1) unsharded axes
-    -> all_to_all transpose over ICI (split next axis, gather sharded axis)
+    -> all_to_all transpose between devices (split next axis, gather sharded axis)
     -> local FFT over the remaining axis
 
 **Layout convention** (the key throughput decision): forward transforms

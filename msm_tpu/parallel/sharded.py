@@ -4,7 +4,8 @@ This is the scale-out path the reference does not have (it is strictly
 single-GPU, `simulator/src/main.rs:23`): streams are data-parallel over the
 ``stream`` mesh axis and the grid's leading spatial axis is sharded over the
 ``x`` axis, with FFTs transposing via `all_to_all` (parallel.pfft) and
-scalar reductions finishing in `pmax`/`psum` — all compiled over ICI by XLA.
+scalar reductions finishing in `pmax`/`psum` — XLA lowers the collectives
+to NCCL on GPUs.
 
 Layouts inside the shard_map region (3-D, batched):
 
@@ -79,9 +80,6 @@ class MeshStepper:
         pencil = shard_space and len(active) == 2
         self.space_axes = tuple(active) if shard_space else ()
 
-        n_space = 1
-        for name in active:
-            n_space *= mesh.shape[name]
         self.stepper = Stepper(
             params,
             dtype,
@@ -90,26 +88,13 @@ class MeshStepper:
             ),
             dt_mode=dt_mode,
             debug_checks=debug_checks,
-            space_devices=n_space if shard_space else None,
             # the stream axis is always bound inside this mesh's shard_map
             # (extent 1 included) — the combine row reduces over it
             stream_axis=STREAM_AXIS,
         )
-        engine = self.stepper.sharded_engine
-
         dims = params.dims
         nones = (None,) * (dims - 1)
-        if engine:
-            # Sharded fused engine (parallel/pfft_fused.py): ALL active
-            # space axes act as one combined flattened axis. Real space
-            # shards Z over the combined axis; engine-order k space shards
-            # Y (axis 0 / Z stays fully local so the Z-axis kernels run
-            # unchanged — pfft_fused docstring).
-            comb = tuple(active) if len(active) > 1 else active[0]
-            self.psi_spec = P(STREAM_AXIS, comb, None, None)
-            self.psik_spec = P(STREAM_AXIS, None, comb, None)
-            kspec = P(None, comb, None)
-        elif pencil:
+        if pencil:
             ax0, ax1 = active
             # real space (Z/px, Y/py, X); k space (Z, Y/px, X/py)
             self.psi_spec = P(STREAM_AXIS, ax0, ax1, None)
@@ -154,22 +139,10 @@ class MeshStepper:
         # is None in this configuration get a None spec (empty subtree,
         # matching the consts pytree structure).
         field_specs = {
-            # on the engine path the full k^2 grid and alias mask are never
-            # read (synthesized in-register from the separable tables) and
-            # are replaced by tiny replicated placeholders below
-            "spec_grid": P() if engine else kspec,
-            "alias_mask": P() if engine else kspec,
+            "spec_grid": kspec,
+            "alias_mask": kspec,
             "tau_dumps": P(),
             "spec_grid_r": P(),
-            "poisson_map": kspec,
-            "spec_axis0": P(),
-            # 2-D (k1^2 + k2^2) table: rows sharded over the combined space
-            # axis — each device's slice matches its engine-order k chunk
-            "spec_axis12": (
-                P(tuple(active) if len(active) > 1 else active[0], None)
-                if engine
-                else P()
-            ),
         }
         names = {f.name for f in dataclasses.fields(StepConsts)}
         missing = names - field_specs.keys()
@@ -204,15 +177,6 @@ class MeshStepper:
         self._interval_jits: dict = {}
         self._init_fn = jax.jit(
             jax.shard_map(
-                lambda re, im, consts: self.stepper._init_from_planes(re, im, consts),
-                mesh=self.mesh,
-                in_specs=(self.psi_spec, self.psi_spec, self.consts_specs),
-                out_specs=self.state_specs,
-                check_vma=False,
-            )
-        )
-        self._init_fn_z = jax.jit(
-            jax.shard_map(
                 lambda psi, consts: self.stepper._init_from_psi(psi, consts),
                 mesh=self.mesh,
                 in_specs=(self.psi_spec, self.consts_specs),
@@ -238,15 +202,6 @@ class MeshStepper:
             consts_host = dataclasses.replace(
                 consts_host,
                 spec_grid_r=jnp.zeros((1,) * params.dims, self.stepper.rdtype),
-            )
-        if engine:
-            # unused on the fused engine path (pfft_fused synthesizes the
-            # kinetic phase, Poisson map and alias mask from the separable
-            # tables) — don't replicate two N^3 grids per device
-            consts_host = dataclasses.replace(
-                consts_host,
-                spec_grid=jnp.zeros((1,) * params.dims, self.stepper.rdtype),
-                alias_mask=jnp.zeros((1,) * params.dims, self.stepper.rdtype),
             )
         self.consts = jax.device_put(
             consts_host,
@@ -278,20 +233,14 @@ class MeshStepper:
                 f"stream count {psi0.shape[0]} not divisible by stream axis {n_stream}"
             )
         sharding = NamedSharding(self.mesh, self.psi_spec)
-        if isinstance(psi0, jax.Array):
-            # already on-device: reshard without a host round trip
-            return self._init_fn_z(jax.device_put(psi0, sharding), self.consts)
-        arr = np.asarray(psi0)
-        rdtype = np.dtype(self.stepper.rdtype)
-        re = jax.device_put(np.ascontiguousarray(arr.real, rdtype), sharding)
-        im = jax.device_put(np.ascontiguousarray(arr.imag, rdtype), sharding)
-        return self._init_fn(re, im, self.consts)
+        if not isinstance(psi0, jax.Array):
+            psi0 = np.asarray(psi0, self.stepper.dtype)
+        # device arrays reshard without a host round trip
+        return self._init_fn(jax.device_put(psi0, sharding), self.consts)
 
     def gather_psi(self, state: SimState) -> np.ndarray:
-        """Fetch the full (streams, *grid) psi to host (complex-safe)."""
-        from ..utils.transfer import device_get_complex
-
-        return device_get_complex(state.psi)
+        """Fetch the full (streams, *grid) psi to host."""
+        return np.asarray(state.psi)
 
     def gather_spatial(self, arr):
         """Reshard (streams, *grid) to stream-only sharding.
@@ -334,18 +283,14 @@ class MeshStepper:
         over the space axes). The combined mean fields are all_gathered
         over the space axes alongside the dump planes and leave the
         program fully replicated — every process reads them from the
-        payload, process 0 writes (`OnlineCombiner.write_row`). On the
-        sharded fused engine the psik means travel in ENGINE k-order
-        inside the program and are permuted to natural order AFTER the
-        space gather (the per-shard permutation would cross shards).
+        payload, process 0 writes (`OnlineCombiner.write_row`).
         """
         return self._interval_fn(k, with_potential, combine)(state, self.consts)
 
     def _interval_fn(self, k: int, with_potential: bool = False, combine=None):
         """The compiled k-interval mesh program (cached per key). Exposed
-        so tests can AOT-lower it at target scale (1024^3) with
-        ShapeDtypeStruct inputs without allocating a grid
-        (tests/test_scale_lowering.py)."""
+        so callers can AOT-lower and compile it (e.g. for
+        `memory_analysis()`) with ShapeDtypeStruct inputs."""
         from jax import lax
 
         key = (int(k), bool(with_potential), combine)
@@ -356,7 +301,7 @@ class MeshStepper:
                 "n_steps", "dt_min", "dt_max", "replays",
                 "current_dumps", "time", "tau", "a",
             )
-            grid_names = ("psi_re", "psi_im") + (
+            grid_names = ("psi",) + (
                 ("pot",) if with_potential else ()
             )
             # array-axis -> mesh-axis gathers for the payload grids, from
@@ -369,8 +314,8 @@ class MeshStepper:
             ]
             # combine mean fields have NO stream axis (already psummed over
             # it): payload offset +1, sharding from psi/psik grid specs
-            comb_psi_names = ("comb_psi_re", "comb_psi_im", "comb_psi2")
-            comb_psik_names = ("comb_psik_re", "comb_psik_im", "comb_psik2")
+            comb_psi_names = ("comb_psi", "comb_psi2")
+            comb_psik_names = ("comb_psik", "comb_psik2")
             comb_gathers = [
                 (name, ax + 1, mesh_names)
                 for spec, names_ in (
@@ -400,15 +345,6 @@ class MeshStepper:
                         outs[name] = lax.all_gather(
                             outs[name], mesh_names, axis=ax, tiled=True
                         )
-                    if self.stepper.sharded_engine:
-                        # engine k-order -> natural, on the now-local full
-                        # grids (mxu_fft.to_natural permutes trailing dims)
-                        from ..ops import mxu_fft
-
-                        for name in comb_psik_names:
-                            outs[name] = mxu_fft.to_natural(
-                                outs[name], self.params.dims
-                            )
                 return snapped, outs
 
             dims = self.params.dims

@@ -1,6 +1,6 @@
 """Ensemble synthesis: reduce per-stream dumps into ensemble averages.
 
-TPU-native counterpart of the `msm-synthesizer` crate
+Counterpart of the `msm-synthesizer` crate
 (`synthesizer/src/main.rs`, `synthesizer/src/lib.rs:106-609`):
 
 - `analyze_sims`: for every dump, average registered per-stream functions
@@ -41,7 +41,6 @@ from .config import (
     get_supercomoving_boxsize,
 )
 from .io.npy import AsyncGridWriter, load_complex_pair, write_complex_pair
-from .utils.transfer import device_get_complex, device_put_complex
 
 # Streams are reduced in device batches of this many grids to bound memory.
 DEFAULT_STREAM_CHUNK = 16
@@ -52,6 +51,15 @@ PostArrayFn = Callable[
     [np.ndarray, np.ndarray, np.ndarray, np.ndarray], np.ndarray
 ]
 PostScalarFn = Callable[..., complex]
+
+
+def _host_complex(x) -> np.ndarray:
+    """Fetch a device array as a complex host array (real results gain a
+    zero imaginary part: every combined field is written as a pair)."""
+    arr = np.asarray(x)
+    if np.iscomplexobj(arr):
+        return arr
+    return arr.astype(np.complex64 if arr.dtype == np.float32 else np.complex128)
 
 
 def default_array_functions() -> dict[str, ArrayFn]:
@@ -169,7 +177,7 @@ def analyze_sims(
                     g = load_complex_pair(os.path.join(d, f"psi_{dump:05d}"))
                     size = g.shape[0]
                     grids.append(g.reshape((size,) * dims))
-                psi_chunk = device_put_complex(np.stack(grids), dtype)
+                psi_chunk = jnp.asarray(np.stack(grids), dtype)
                 partial, partial_scalars = reduce_chunk(psi_chunk)
                 for name in names:
                     totals[name] = (
@@ -179,12 +187,12 @@ def analyze_sims(
                     )
                 for name in scalar_names:
                     scalar_totals[name] += complex(
-                        device_get_complex(partial_scalars[name])
+                        np.asarray(partial_scalars[name])
                     )
                 nsims += len(batch_dirs)
             assert nsims > 0
             for name in names:
-                avg = device_get_complex(totals[name]) / nsims
+                avg = _host_complex(totals[name]) / nsims
                 size = avg.shape[0]
                 pad = (1,) * (4 - dims)
                 avg4 = avg.reshape((size,) * dims + pad)
@@ -421,7 +429,7 @@ class OnlineCombiner:
         fields = self._combine(psi_streams, weights)
         if not write:
             return
-        host = {name: device_get_complex(arr) for name, arr in fields.items()}
+        host = {name: _host_complex(arr) for name, arr in fields.items()}
         self._write_fields(host, dump)
         self.qx_series[dump] = complex(
             np.sum(host["psi2"] - host["psi"] * np.conj(host["psi"])) * self.dv
@@ -431,18 +439,11 @@ class OnlineCombiner:
         """Write one interval row of the IN-JIT combined payload
         (`Stepper._combine_row`, the blocked `--online-synthesis` path) in
         the identical `-combined/` layout `on_dump` produces."""
-        re = np.asarray(row["comb_psi_re"])
-        cdt = np.complex128 if re.dtype == np.float64 else np.complex64
         fields = {
-            "psi": re + 1j * np.asarray(row["comb_psi_im"]),
-            "psi2": np.asarray(row["comb_psi2"]),
-            "psik": np.asarray(row["comb_psik_re"])
-            + 1j * np.asarray(row["comb_psik_im"]),
-            "psik2": np.asarray(row["comb_psik2"]),
+            name: _host_complex(row[f"comb_{name}"])
+            for name in ("psi", "psi2", "psik", "psik2")
         }
-        self._write_fields(
-            {name: arr.astype(cdt) for name, arr in fields.items()}, dump
-        )
+        self._write_fields(fields, dump)
         self.qx_series[dump] = complex(float(np.asarray(row["comb_qx"])))
 
     def _write_fields(self, fields: dict, dump: int) -> None:

@@ -1,6 +1,6 @@
 """Statistical validation of the stream ensemble against MFT.
 
-TPU-native counterpart of `simulator/check_var.py:25-54` (P4 in SURVEY.md):
+Counterpart of `simulator/check_var.py:25-54` (P4 in SURVEY.md):
 for a combined ensemble, compare <|psi|^2> against the MFT density and
 report the per-cell mean/variance of n * (<|psi|^2> - |psi_mft|^2) dV —
 which for correct sampling statistics has mean ~ O(1) (scheme-dependent

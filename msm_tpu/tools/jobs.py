@@ -1,6 +1,6 @@
 """Cluster job generation for the offline synthesizer.
 
-TPU-native counterpart of `synthesizer/gen_sbatch.py:6-51` (P6): generate
+Counterpart of `synthesizer/gen_sbatch.py:6-51` (P6): generate
 (and optionally submit) one SLURM batch job per dump range so analysis of a
 large ensemble fans out across a cluster. The reference emitted one job per
 dump; ranges are configurable here, and each job invokes

@@ -1,6 +1,6 @@
 """Visualization tools for simulation dumps and combined quantities.
 
-TPU-native counterpart of the reference's plot scripts (SURVEY.md §2.2):
+Counterpart of the reference's plot scripts (SURVEY.md §2.2):
 
 - `density_frames` / movie: per-dump projected |psi|^2 and |psi_k|^2 image
   frames (reference `simulator/plot.py:16-128`).

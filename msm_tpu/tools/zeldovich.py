@@ -1,6 +1,6 @@
 """Zel'dovich plane-wave initial-condition generator + workflow driver.
 
-TPU-native counterpart of the reference's `sim.py` (P1 in SURVEY.md §2.2):
+Counterpart of the reference's `sim.py` (P1 in SURVEY.md §2.2):
 build psi = sqrt(n) exp(i phi / hbar_) from a Zel'dovich displacement field
 (`sim.py:124-183`), save it as an npz the simulator ingests via
 `UserSpecified` ICs (`sim.py:185-186`), and generate the stream + MFT TOML

@@ -1,6 +1,6 @@
 """Observability: progress reporting, per-step timing, profiler traces.
 
-TPU-native counterpart of the reference's instrumentation (SURVEY.md §5):
+Counterpart of the reference's instrumentation (SURVEY.md §5):
 `indicatif` progress bar with ETA and live t/z readout
 (`simulation_object.rs:440-447,1210-1222`), wall timers around the run and
 each update (`main.rs:32,64`, `simulation_object.rs:482`), accumulated

@@ -1,6 +1,6 @@
 // Native I/O core for msm_tpu: npy pair writer for complex grids.
 //
-// TPU-native counterpart of the reference's Rust async dump path
+// Counterpart of the reference's Rust async dump path
 // (`simulator/src/utils/io.rs:34-97`: host the array, split real/imag,
 // write two npy files on worker threads). The Python layer owns threading
 // and throttling (io/npy.py, mirroring MAX_CONCURRENT_GRID_WRITES,

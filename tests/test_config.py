@@ -1,22 +1,26 @@
 """Config layer tests: seeds DSL, TOML ingestion, parameter resolution.
 
 Mirrors the reference's seeds-DSL tests (`common/src/parameters.rs:121-144`)
-and TOML round-trip test (`simulator/src/utils/io.rs:248-326`), plus direct
-ingestion of the reference repo's shipped tomls.
+and TOML round-trip test (`simulator/src/utils/io.rs:248-326`), plus
+ingestion of fixtures that mirror the reference's shipped tomls
+(tests/fixtures/, values per SURVEY.md §6).
 """
 
-import glob
 import math
+import os
 
 import pytest
 
 from msm_tpu import config as cfg
 from msm_tpu.constants import HBAR, LITTLE_H_TO_BIG_H
 
-REFERENCE_TOMLS = sorted(
-    glob.glob("/root/reference/examples/*.toml")
-    + glob.glob("/root/reference/tomls/*.toml")
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+REFERENCE_TOMLS = (
+    "spherical-tophat.toml",
+    "spherical-tophat-cosmo.toml",
+    "planeWave3d_e10_sym.toml",
 )
+TOPHAT = os.path.join(FIXTURES, "spherical-tophat.toml")
 
 
 def test_seeds_range_inclusive():
@@ -52,9 +56,9 @@ def test_seeds_malformed_rejected():
     assert cfg.parse_seeds(" 7 ") == (7,)
 
 
-@pytest.mark.parametrize("path", REFERENCE_TOMLS)
-def test_reads_reference_tomls(path):
-    toml = cfg.read_toml(path)
+@pytest.mark.parametrize("name", REFERENCE_TOMLS)
+def test_reads_reference_tomls(name):
+    toml = cfg.read_toml(os.path.join(FIXTURES, name))
     assert toml.size % 2 == 0
     assert toml.dims in (1, 2, 3)
     params = cfg.resolve_parameters(toml)
@@ -62,8 +66,20 @@ def test_reads_reference_tomls(path):
     assert params.dk == params.dx
 
 
+def test_plane3d_fixture_parses_as_shipped():
+    """The plane-wave config's unused num_streams key and its remote-storage
+    and cosmology tables parse (tomls/planeWave3d_e10_sym.toml shape)."""
+    toml = cfg.read_toml(os.path.join(FIXTURES, "planeWave3d_e10_sym.toml"))
+    assert toml.size == 16 and toml.dims == 3
+    assert toml.sampling.scheme == "Wigner"
+    assert toml.sampling.seeds == tuple(range(1, 17))
+    assert toml.cosmology is not None and toml.cosmology.z0 == 99.0
+    assert toml.remote_storage_parameters.storage_account == "streams"
+    assert isinstance(toml.ics, cfg.UserSpecified)
+
+
 def test_tophat_example_values():
-    toml = cfg.read_toml("/root/reference/examples/spherical-tophat.toml")
+    toml = cfg.read_toml(TOPHAT)
     assert toml.axis_length == 30
     assert toml.hbar_ == 0.05
     assert toml.sampling.scheme == "Husimi"
@@ -77,7 +93,7 @@ def test_tophat_example_values():
 
 
 def test_pmass_priority_ntot_over_particle_mass():
-    toml = cfg.read_toml("/root/reference/tomls/planeWave3d_e10_sym.toml")
+    toml = cfg.read_toml(os.path.join(FIXTURES, "planeWave3d_e10_sym.toml"))
     # ntot specified: particle_mass = total_mass / ntot, hbar_ from toml
     pm, hb = cfg.determine_pmass_hbar(toml)
     assert pm == pytest.approx(3e16 / 1e10)
@@ -85,7 +101,7 @@ def test_pmass_priority_ntot_over_particle_mass():
 
 
 def test_pmass_requires_some_spec():
-    toml = cfg.read_toml("/root/reference/examples/spherical-tophat.toml")
+    toml = cfg.read_toml(TOPHAT)
     bad = cfg.TomlParameters(
         **{
             **{f.name: getattr(toml, f.name) for f in toml.__dataclass_fields__.values()},
@@ -113,7 +129,7 @@ def test_supercomoving_boxsize():
 
 
 def test_stream_iteration_names_and_mft():
-    toml = cfg.read_toml("/root/reference/examples/spherical-tophat.toml")
+    toml = cfg.read_toml(TOPHAT)
     runs = list(cfg.iter_stream_parameters(toml))
     assert len(runs) == 11  # 10 seeds + MFT
     assert runs[0].sim_name == "spherical-tophat-stream00001"
@@ -136,7 +152,7 @@ def test_cosmology_validation():
 
 
 def test_grid_axis_convention():
-    toml = cfg.read_toml("/root/reference/examples/spherical-tophat.toml")
+    toml = cfg.read_toml(TOPHAT)
     p = cfg.resolve_parameters(toml)
     # x (config axis 0) is the fastest-varying (last) array axis
     assert p.grid_axis(0) == 2

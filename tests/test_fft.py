@@ -2,7 +2,6 @@
 identity and norm preservation for every dims x dtype combination, plus the
 batched leading-axis path the reference doesn't have."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,351 +54,25 @@ def test_batched_leading_axis(rng):
         )
 
 
-class TestMatmulDFT:
-    """The MXU matmul-DFT backend must match the XLA FFT."""
-
-    def teardown_method(self):
-        fft.set_default_mode("xla")
-
-    @pytest.mark.parametrize("dims", [1, 2, 3])
-    def test_matches_fftn(self, rng, dims):
-        size = 16
-        psi = _random_psi(rng, (2,) + (size,) * dims, jnp.complex128)
-        ref_f = np.asarray(fft.forward(psi, dims))
-        ref_i = np.asarray(fft.inverse(psi, dims))
-        fft.set_default_mode("matmul")
-        np.testing.assert_allclose(np.asarray(fft.forward(psi, dims)), ref_f, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(fft.inverse(psi, dims)), ref_i, atol=1e-12)
-
-    def test_roundtrip_unitary(self, rng):
-        fft.set_default_mode("matmul")
-        psi = _random_psi(rng, (32, 32), jnp.complex128)
-        back = fft.inverse(fft.forward(psi, 2), 2)
-        np.testing.assert_allclose(np.asarray(back), np.asarray(psi), atol=1e-12)
-
-    def test_full_step_matches_xla(self, rng):
-        from msm_tpu import config as cfg
-        from msm_tpu.models.ics import build_ics
-        from msm_tpu.stepper import Stepper
-
-        toml = cfg.TomlParameters(
-            axis_length=30.0, final_sim_time=10.0, cfl=0.5, num_data_dumps=10,
-            total_mass=1e10, sim_name="dft", k2_cutoff=0.95, alias_threshold=0.5,
-            dims=2, size=32, hbar_=0.05,
-            ics=cfg.SphericalTophat(radius=5.0, delta=10.0, slope=50.0),
-        )
-        p = cfg.resolve_parameters(toml)
-        psi0 = build_ics(p)
-        s_xla = Stepper(p, jnp.complex128).step(Stepper(p, jnp.complex128).init_state(psi0))
-        fft.set_default_mode("matmul")
-        st = Stepper(p, jnp.complex128)
-        s_mm = st.step(st.init_state(psi0))
-        np.testing.assert_allclose(
-            np.asarray(s_mm.psi), np.asarray(s_xla.psi), atol=1e-11
-        )
-        np.testing.assert_allclose(float(s_mm.time), float(s_xla.time), rtol=1e-12)
-
-
-# ---------------------------------------------------------------------------
-# MXU CT-matmul FFT (ops/mxu_fft.py)
-# ---------------------------------------------------------------------------
-
-from msm_tpu.ops import mxu_fft
-
-
 @pytest.mark.parametrize(
-    "size,dims,shape",
+    "dims,shape",
     [
-        (128, 1, (128,)),
-        (256, 1, (3, 256)),
-        (512, 1, (512,)),
-        (1024, 1, (1024,)),
-        (256, 2, (256, 256)),
-        (128, 3, (128, 128, 128)),
+        (1, (128,)),
+        (1, (3, 256)),
+        (1, (512,)),
+        (1, (1024,)),
+        (2, (256, 256)),
+        (3, (128, 128, 128)),
     ],
 )
-def test_mxu_fft_matches_numpy(size, dims, shape, rng):
-    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(
-        np.complex128
-    )
-    ref = np.fft.fftn(x, axes=tuple(range(-dims, 0)), norm="ortho")
-    got = np.asarray(mxu_fft.forward(jnp.asarray(x), dims))
+def test_forward_inverse_match_numpy_f64(rng, dims, shape):
+    """Both transforms against numpy's f64 FFT at the grid sizes the
+    production configs use (leading batch axes included)."""
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    axes = tuple(range(-dims, 0))
+    ref = np.fft.fftn(x, axes=axes, norm="ortho")
+    got = np.asarray(fft.forward(jnp.asarray(x), dims))
     np.testing.assert_allclose(got, ref, atol=1e-12)
-    back = np.asarray(mxu_fft.inverse(jnp.asarray(ref), dims))
+    back = np.asarray(fft.inverse(jnp.asarray(ref), dims))
     np.testing.assert_allclose(back, x, atol=1e-12)
 
-
-def test_mxu_engine_order_consistency(rng):
-    """Engine order: inverse_engine(forward_engine(x)) == x without any
-    reordering, and permute_spec maps natural k-grids onto engine indices."""
-    x = (rng.standard_normal((256, 256)) + 1j * rng.standard_normal((256, 256)))
-    xe = mxu_fft.forward_engine(jnp.asarray(x), 2)
-    rt = np.asarray(mxu_fft.inverse_engine(xe, 2))
-    np.testing.assert_allclose(rt, x, atol=1e-12)
-    # permuted constants line up with engine-order data
-    ref_k = np.fft.fftn(x, norm="ortho")
-    spec = np.add.outer(np.fft.fftfreq(256) ** 2, np.fft.fftfreq(256) ** 2)
-    got = np.asarray(mxu_fft.to_natural(xe, 2))
-    np.testing.assert_allclose(got, ref_k, atol=1e-12)
-    spec_e = mxu_fft.permute_spec(spec, 2)
-    # multiply in engine order, come back: must equal natural-product
-    prod_e = np.asarray(xe) * spec_e
-    prod_n = np.asarray(mxu_fft.to_natural(jnp.asarray(prod_e), 2))
-    np.testing.assert_allclose(prod_n, ref_k * spec, atol=1e-12)
-
-
-def test_mxu_supported_sizes():
-    assert all(mxu_fft.supported(s) for s in (128, 256, 512, 1024))
-    assert not any(mxu_fft.supported(s) for s in (64, 192, 2048, 96))
-
-
-def test_mxu_real_transforms(rng):
-    """Real-input forward / real-output inverse (the Poisson path)."""
-    rho = rng.standard_normal((128, 128, 128))
-    got = np.asarray(mxu_fft.forward_engine_real(jnp.asarray(rho), 3))
-    ref = np.asarray(mxu_fft.forward_engine(jnp.asarray(rho + 0j), 3))
-    np.testing.assert_allclose(got, ref, atol=1e-12)
-
-    phik = mxu_fft.forward_engine(
-        jnp.asarray(rng.standard_normal((256, 256)) + 0j), 2
-    )
-    back_real = np.asarray(mxu_fft.inverse_engine_real(phik, 2))
-    back_full = np.asarray(mxu_fft.inverse_engine(phik, 2))
-    np.testing.assert_allclose(back_real, back_full.real, atol=1e-12)
-
-
-def test_mxu_poisson_solve_roundtrip_kernel(rng):
-    """The 3-pass fused Poisson solve (density fwd -> one-kernel z-axis
-    F/pmap/F^-1 roundtrip -> real inverse) equals the unfused chain."""
-    psi = (
-        rng.standard_normal((128, 128, 128))
-        + 1j * rng.standard_normal((128, 128, 128))
-    )
-    spec = sum(
-        np.square(2.0 * np.pi * np.fft.fftfreq(128, d=1.0 / 128))[sh]
-        for sh in (
-            (slice(None), None, None),
-            (None, slice(None), None),
-            (None, None, slice(None)),
-        )
-    )
-    spec_e = mxu_fft.permute_spec(spec, 3)
-    pmap = np.where(spec_e > 0, -1.0 / np.where(spec_e > 0, spec_e, 1.0), 0.0)
-    prefactor = 2.5
-    got = np.asarray(
-        mxu_fft.poisson_solve(jnp.asarray(psi), 3, prefactor, jnp.asarray(pmap))
-    )
-    rho_k = mxu_fft.forward_engine_density(jnp.asarray(psi), 3, prefactor)
-    ref = np.asarray(
-        mxu_fft.inverse_engine_real(rho_k, 3, pmap=jnp.asarray(pmap))
-    )
-    np.testing.assert_allclose(got, ref, atol=1e-10)
-    # batched leading axis rides through unchanged
-    got_b = np.asarray(
-        mxu_fft.poisson_solve(
-            jnp.asarray(psi[None]), 3, prefactor, jnp.asarray(pmap)
-        )
-    )
-    np.testing.assert_allclose(got_b[0], got, atol=1e-12)
-
-
-def test_mxu_bf16x3_precision_mode(rng):
-    """The 3-pass bf16-split matmul mode (MSM_MXU_PRECISION=bf16x3) stays
-    within its designed ~2^-17 relative floor and round-trips."""
-    from msm_tpu.ops import mxu_fft as m
-
-    saved = m._PRECISION
-    m._PRECISION = "bf16x3"
-    try:
-        x = (
-            rng.standard_normal((64, 128, 128))
-            + 1j * rng.standard_normal((64, 128, 128))
-        ).astype(np.complex64)
-        xk = m.forward_engine(jnp.asarray(x), 2)
-        ref = np.fft.fft2(x.astype(np.complex128), norm="ortho")
-        err = np.abs(np.asarray(m.to_natural(xk, 2)) - ref)
-        scale = np.abs(ref).max()
-        assert err.max() / scale < 5e-5, err.max() / scale
-        back = np.asarray(m.inverse_engine(xk, 2))
-        assert np.abs(back - x).max() < 2e-4
-    finally:
-        m._PRECISION = saved
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("n,batch", [(128, 2), (256, 1)])
-def test_fused_step_3d_matches_unfused_chain(rng, n, batch):
-    """fused_step_3d's five passes — including the in-kernel reductions
-    (sum|psik|^2, alias mass above the cutoff, max|phi|) and the k-space
-    constants synthesized from the separable 1-D tables — reproduce the
-    explicit unfused chain of engine transforms + XLA reductions.
-
-    n=128 is R=1 (no radix butterfly); n=256 exercises the R=2 butterfly
-    and the all-real radix-2 lane fast paths in every fused kernel — the
-    production 256^3/512^3 code shape."""
-    psik = (
-        rng.standard_normal((batch, n, n, n))
-        + 1j * rng.standard_normal((batch, n, n, n))
-    ).astype(np.complex64)
-    k1d = np.square(2.0 * np.pi * np.fft.fftfreq(n, d=1.0 / n)).astype(np.float32)
-    s1d = np.take(k1d, mxu_fft.engine_perm(n))
-    s0 = s1d
-    s12 = (s1d[:, None] + s1d[None, :]).reshape(-1)
-    spec_e = (
-        s1d[:, None, None] + s1d[None, :, None] + s1d[None, None, :]
-    )
-    # CFL-physical kick magnitudes: |kcoeff|*k2_max = O(1) radian (a real
-    # run's dt is CFL-bounded). Unphysically large angles (e.g. 3e-4*k2max
-    # ~ 194 rad at n=256) make the comparison measure nothing but f32
-    # argument-reduction differences between the two exp implementations.
-    kcoeff = np.asarray([1.5, -0.5][:batch], np.float32) / np.float32(
-        3 * k1d.max()
-    )
-    vcoeff = np.asarray([-2e-3, 1e-3][:batch], np.float32)
-    pois, cut, pref = 0.7, float(0.5 * spec_e.max()), 2.0
-
-    psi, psik2, ns, am, mx = mxu_fft.fused_step_3d(
-        jnp.asarray(psik), jnp.asarray(s0), jnp.asarray(s12),
-        jnp.asarray(kcoeff), jnp.asarray(vcoeff), pois, cut, pref,
-    )
-
-    # unfused reference chain
-    ref_psi = mxu_fft.inverse_engine(
-        jnp.asarray(psik) * jnp.exp(1j * kcoeff[:, None, None, None] * spec_e), 3
-    )
-    pmap = np.where(spec_e > 0, -pois / np.where(spec_e > 0, spec_e, 1.0), 0.0)
-    rho_k = mxu_fft.forward_engine_density(ref_psi, 3, pref)
-    ref_phi = mxu_fft.inverse_engine_real(rho_k, 3, pmap=jnp.asarray(pmap))
-    ref_psik2 = mxu_fft.forward_engine(
-        ref_psi * jnp.exp(1j * vcoeff[:, None, None, None] * ref_phi), 3
-    )
-    np.testing.assert_allclose(np.asarray(psi), np.asarray(ref_psi), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(psik2), np.asarray(ref_psik2), atol=2e-4)
-    p2 = np.abs(np.asarray(ref_psik2)) ** 2
-    np.testing.assert_allclose(np.asarray(ns), p2.sum(axis=(1, 2, 3)), rtol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(am),
-        (p2 * (spec_e > cut)).sum(axis=(1, 2, 3)),
-        rtol=1e-3,
-    )
-    # phi runs at bf16x3 under the default mixed precision (its error is a
-    # unitary-phase perturbation, ops/mxu_fft.py _PRECISION docstring)
-    np.testing.assert_allclose(
-        np.asarray(mx), np.abs(np.asarray(ref_phi)).max(axis=(1, 2, 3)), rtol=5e-4
-    )
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("n,batch", [(128, 2), (256, 1)])
-def test_fused_step_3d_skewed_matches_fused(rng, n, batch):
-    """The skewed 4-pass step (pass A = fwd0 + reductions + kick + inv0 in
-    one kernel, `fused_step_3d_skewed`) is the 5-pass step cyclically
-    rotated: entering via skew_enter and leaving via skew_exit must
-    reproduce fused_step_3d's outputs, with pass A's reductions describing
-    the INPUT psik and skew_exit's the output."""
-    psik = (
-        rng.standard_normal((batch, n, n, n))
-        + 1j * rng.standard_normal((batch, n, n, n))
-    ).astype(np.complex64)
-    k1d = np.square(2.0 * np.pi * np.fft.fftfreq(n, d=1.0 / n)).astype(np.float32)
-    s1d = np.take(k1d, mxu_fft.engine_perm(n))
-    s0 = s1d
-    s12 = (s1d[:, None] + s1d[None, :]).reshape(-1)
-    spec_e = s1d[:, None, None] + s1d[None, :, None] + s1d[None, None, :]
-    kcoeff = np.asarray([1.5, -0.5][:batch], np.float32) / np.float32(3 * k1d.max())
-    vcoeff = np.asarray([-2e-3, 1e-3][:batch], np.float32)
-    pois, cut, pref = 0.7, float(0.5 * spec_e.max()), 2.0
-
-    ref_psi, ref_psik, ref_ns, ref_am, ref_mx = mxu_fft.fused_step_3d(
-        jnp.asarray(psik), jnp.asarray(s0), jnp.asarray(s12),
-        jnp.asarray(kcoeff), jnp.asarray(vcoeff), pois, cut, pref,
-    )
-
-    qr, qi = mxu_fft.skew_enter(jnp.asarray(psik), 3)
-    qr2, qi2, ns_in, am_in, mx = mxu_fft.fused_step_3d_skewed(
-        qr, qi, jnp.asarray(s0), jnp.asarray(s12),
-        jnp.asarray(kcoeff), jnp.asarray(vcoeff), pois, cut, pref,
-    )
-    # pass A's reductions are of the INPUT spectrum
-    p2_in = np.abs(psik) ** 2
-    np.testing.assert_allclose(
-        np.asarray(ns_in), p2_in.sum(axis=(1, 2, 3)), rtol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(am_in), (p2_in * (spec_e > cut)).sum(axis=(1, 2, 3)), rtol=1e-3
-    )
-    np.testing.assert_allclose(np.asarray(mx), np.asarray(ref_mx), rtol=2e-4)
-
-    pending = np.zeros(batch, np.float32)
-    psi_out, psik_out, ns_out, am_out = mxu_fft.skew_exit(
-        qr2, qi2, jnp.asarray(s0), jnp.asarray(s12), jnp.asarray(pending), cut
-    )
-    np.testing.assert_allclose(
-        np.asarray(psik_out), np.asarray(ref_psik), atol=3e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(psi_out),
-        np.asarray(mxu_fft.inverse_engine(ref_psik, 3)),
-        atol=3e-4,
-    )
-    p2 = np.abs(np.asarray(ref_psik)) ** 2
-    np.testing.assert_allclose(np.asarray(ns_out), p2.sum(axis=(1, 2, 3)), rtol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(am_out), (p2 * (spec_e > cut)).sum(axis=(1, 2, 3)), rtol=1e-3
-    )
-
-
-def test_exact_prefix_kernel_variants(rng):
-    """The exact-dt prefix's write-light kernel variants (rho-only fused2
-    inverse+density, max-only real inverse) match their full siblings'
-    values, and fused_step_exact_prefix reproduces the explicit
-    pending-kick + poisson_solve max|phi| chain."""
-    n = 128
-    q = (
-        rng.standard_normal((1, n, n, n)) + 1j * rng.standard_normal((1, n, n, n))
-    ).astype(np.complex64)
-    qr = jnp.asarray(q.real)
-    qi = jnp.asarray(q.imag)
-    pref = 2.0
-
-    pr, pi, dr_full, di_full = mxu_fft._axis_pass_fused2_inv_density(qr, qi, pref)
-    dr, di = mxu_fft._axis_pass_fused2_inv_density_rho_only(qr, qi, pref)
-    np.testing.assert_allclose(np.asarray(dr), np.asarray(dr_full), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(di), np.asarray(di_full), atol=1e-5)
-
-    mx = mxu_fft._axis_pass_fused2_real_inv_max(
-        dr.reshape(n, n, n), di.reshape(n, n, n)
-    )
-    fr = np.asarray(mxu_fft._axis_pass_fused2_real((dr, di), inverse=True))
-    np.testing.assert_allclose(
-        np.asarray(mx).max(), np.abs(fr).max(), rtol=1e-5
-    )
-
-    # full prefix vs explicit chain
-    k1d = np.square(2.0 * np.pi * np.fft.fftfreq(n, d=1.0 / n)).astype(np.float32)
-    s1d = np.take(k1d, mxu_fft.engine_perm(n))
-    s0 = jnp.asarray(s1d)
-    s12 = jnp.asarray((s1d[:, None] + s1d[None, :]).reshape(-1))
-    spec_e = s1d[:, None, None] + s1d[None, :, None] + s1d[None, None, :]
-    pending = np.asarray([0.5], np.float32) / np.float32(3 * k1d.max())
-    pois = 0.7
-    qr1, qi1, phi_max = mxu_fft.fused_step_exact_prefix(
-        qr, qi, s0, s12, jnp.asarray(pending), pois, pref
-    )
-    # q1 = inv0(exp(i*pending*k^2) * F0(q)):
-    # axis-0-only roundtrip — transform axis 0, kick with the FULL k^2, invert
-    xr, xi = mxu_fft._axis_pass_sublane(qr, qi, 1, inverse=False)
-    phase = np.exp(1j * pending[0] * spec_e)[None]
-    kicked = (np.asarray(xr) + 1j * np.asarray(xi)) * phase
-    er, ei = mxu_fft._axis_pass_sublane(
-        jnp.asarray(kicked.real), jnp.asarray(kicked.imag), 1, inverse=True
-    )
-    np.testing.assert_allclose(np.asarray(qr1), np.asarray(er), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(qi1), np.asarray(ei), atol=2e-4)
-    # phi_max against the full poisson solve of psi(t) = F2^-1[q1]
-    pmap = np.where(spec_e > 0, -pois / np.where(spec_e > 0, spec_e, 1.0), 0.0)
-    psi_t = jax.lax.complex(*mxu_fft._axis_pass_fused2(qr1, qi1, inverse=True))
-    phi = mxu_fft.poisson_solve(psi_t, 3, pref, jnp.asarray(pmap.astype(np.float32)))
-    np.testing.assert_allclose(
-        float(np.asarray(phi_max)[0]), np.abs(np.asarray(phi)).max(), rtol=1e-4
-    )

@@ -2,6 +2,8 @@
 the reference does offline in `simulator/check_var.py:25-54`."""
 
 import math
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,7 +100,9 @@ def test_seeds_reproducible_and_distinct():
 
 def test_astronomical_n_is_noop_in_f32():
     """hbar_-specified configs give n ~ 1e99: perturbation underflows f32."""
-    toml = cfg.read_toml("/root/reference/examples/spherical-tophat.toml")
+    toml = cfg.read_toml(
+        os.path.join(os.path.dirname(__file__), "fixtures", "spherical-tophat.toml")
+    )
     p = cfg.resolve_parameters(toml)
     psi = jnp.asarray(ics.build_ics(p), jnp.complex64)
     out = sampling.sample_quantum_perturbation(psi, p, 1, "Husimi")

@@ -416,104 +416,11 @@ def test_interval_block_matches_single(tmp_path, monkeypatch):
         assert ma == mb
 
 
-def test_chunked_dispatch_matches_unchunked(tmp_path, monkeypatch):
-    """Bounded-steps-per-dispatch chunking (MSM_MAX_STEPS_PER_DISPATCH /
-    simulator._chunk_steps_per_dispatch — the big-grid worker-watchdog
-    workaround) is a pure dispatch restructuring: dumps, manifests, step
-    and replay counters are identical to the unchunked run, through BOTH
-    the single-run driver loop and the batched ensemble fallback
-    (2 Wigner streams + MFT)."""
-    import dataclasses
-    import json
-
-    toml = dataclasses.replace(
-        _toml(tmp_path, seeds="1 to 2", dumps=2, name="chunk"),
-        total_mass=5e12,
-        cfl=0.4,
-        final_sim_time=0.5,
-    )
-    monkeypatch.setenv("MSM_INTERVAL_BLOCK", "1")
-    roots = {}
-    for chunk in ("0", "2"):
-        monkeypatch.setenv("MSM_MAX_STEPS_PER_DISPATCH", chunk)
-        roots[chunk] = str(tmp_path / f"chunk{chunk}")
-        simulator.run_config(toml, dtype=jnp.complex128, data_root=roots[chunk])
-        # single-run (non-batched) driver loop too
-        solo = dataclasses.replace(toml, sampling=None, sim_name="chunks")
-        simulator.run_config(solo, dtype=jnp.complex128, data_root=roots[chunk])
-    for d in ("chunk", "chunk-stream00001", "chunk-stream00002", "chunks"):
-        for i in range(3):
-            a = load_complex_pair(os.path.join(roots["0"], d, f"psi_{i:05d}"))
-            b = load_complex_pair(os.path.join(roots["2"], d, f"psi_{i:05d}"))
-            np.testing.assert_array_equal(a, b)
-        ma = json.load(open(os.path.join(roots["0"], d, "manifest.json")))
-        mb = json.load(open(os.path.join(roots["2"], d, "manifest.json")))
-        assert ma["n_steps"] == mb["n_steps"] > 2  # the cap actually split
-        assert ma["replays"] == mb["replays"]
-        ma.pop("wall_time_ms"), mb.pop("wall_time_ms")
-        assert ma == mb
-
-
-@pytest.mark.parametrize("dtm", ["optimistic", "exact"])
-def test_skewed_production_path_matches_unskewed(tmp_path, monkeypatch, dtm):
-    """The production driver path (interval-blocked evolve + dump/manifest
-    writing) over the SKEWED loop (stepper.skew, docs/DESIGN.md §8f)
-    matches MSM_SKEW_STEP=0 dump for dump. The stepper-level equivalence
-    tests cover the loop itself; this guards the simulator integration
-    (evolve_intervals scan payloads, dump extraction, manifests)."""
-    import json
-
-    from msm_tpu.ops import fft
-
-    toml = cfg.parse_toml_str(
-        """
-axis_length = 30
-final_sim_time = 65.0
-cfl = 0.5
-num_data_dumps = 1
-total_mass = 1e8
-hbar_ = 0.05
-sim_name = "skewprod"
-k2_cutoff = 0.95
-alias_threshold = 0.5
-dims = 3
-size = 128
-
-[ics]
-type = "SphericalTophat"
-radius = 5.0
-slope = 50
-delta = 10
-"""
-    )
-    roots = {}
-    fft.set_default_mode("mxu")
-    try:
-        for skew in ("1", "0"):
-            monkeypatch.setenv("MSM_SKEW_STEP", skew)
-            roots[skew] = str(tmp_path / f"skew{skew}")
-            simulator.run_config(
-                toml, dtype=jnp.complex128, data_root=roots[skew], dt_mode=dtm
-            )
-    finally:
-        fft.set_default_mode("xla")
-    for i in range(2):
-        a = load_complex_pair(os.path.join(roots["1"], "skewprod", f"psi_{i:05d}"))
-        b = load_complex_pair(os.path.join(roots["0"], "skewprod", f"psi_{i:05d}"))
-        np.testing.assert_allclose(a, b, atol=1e-12)
-    ma = json.load(open(os.path.join(roots["1"], "skewprod", "manifest.json")))
-    mb = json.load(open(os.path.join(roots["0"], "skewprod", "manifest.json")))
-    ma.pop("wall_time_ms"), mb.pop("wall_time_ms")
-    assert ma["n_steps"] == mb["n_steps"] >= 3
-    assert ma == mb
-
-
 def test_mesh_interval_block_matches_single(tmp_path, monkeypatch):
     """Interval blocking on a device MESH (MeshStepper.evolve_intervals):
     kblock>1 over the 8-virtual-device mesh produces dumps, potentials and
-    manifests identical to the one-interval mesh loop (VERDICT r2 item 2).
-    Runs the generic (jnp.fft pencil) path; the engine path's interval
-    loop is covered by test_sharded_engine.py."""
+    manifests identical to the one-interval mesh loop (jnp.fft pencil
+    path)."""
     import dataclasses
     import json
 
